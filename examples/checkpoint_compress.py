@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compress device-resident (sharded) arrays in place — the TPU-native
+"""Compress device-resident (sharded) arrays in place — the device-native
 production mode with no reference-example analog: simulation output or
-checkpoint shards living in HBM go straight into the codec without a
+checkpoint shards living in device memory go straight into the codec without a
 host round-trip of the lattice.
 
 Three modes, all producing reference-compatible bytes:

@@ -1,10 +1,10 @@
-"""sz_tpu — a TPU-native error-bounded lossy compression framework.
+"""sz_tpu — an accelerator-native error-bounded lossy compression framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the SZ2 error-bounded lossy
 compressor for scientific data (reference: szcompressor/SZ 2.1.12.4).
 Produces byte streams that the reference SZ2 decompressor accepts
 bit-exactly, while running the parallel passes (prediction, quantization,
-histograms, bit packing) as TPU kernels and scaling over device meshes.
+histograms, bit packing) as device kernels and scaling over device meshes.
 
 Public API:
     compress(data, error_bound=..., mode=...) -> bytes

@@ -31,7 +31,7 @@ _DTYPES = {
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="sz-tpu",
-        description="TPU-native SZ2-compatible error-bounded lossy "
+        description="GPU-accelerated SZ2-compatible error-bounded lossy "
                     "compressor")
     p.add_argument("-z", nargs="?", const="", metavar="OUT",
                    help="compress (output file, default <input>.sz)")

@@ -8,7 +8,7 @@ value-frequency histogram that locates the densest value ("dense_pos") for
 the mean-flush optimization.
 
 The walk indices are data-independent, so we precompute them (cached per
-shape) and evaluate the histograms vectorized — numpy here, TPU kernels in
+shape) and evaluate the histograms vectorized — numpy here, device kernels in
 sz_tpu.ops for large arrays (both histograms are trivially data-parallel;
 only the tiny strided mean is an ordered reduction).
 """

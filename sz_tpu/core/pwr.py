@@ -32,6 +32,7 @@ from sz_tpu.core import classic, classic_nd
 from sz_tpu.format import huffman
 from sz_tpu.format import lossless as ll
 from sz_tpu.format.tdps import TDPS
+from sz_tpu.utils import trace as _tr
 
 
 # ---------------------------------------------------------------------------
@@ -443,26 +444,18 @@ def compress_msst19(data: np.ndarray, pw_ratio: float, fmax, near_zero, *,
                 pred_threshold=pred_threshold, plus_bits=plus_bits,
                 opt_quant_mode=opt_quant_mode,
                 fixed_intervals=fixed_intervals, engine=engine)
-            # t_dev is None when engine="auto" and the Pallas kernels
-            # do not cover this interval count: the host codec is
-            # faster than the XLA scan — fall through to the host
-            # On emulated-f64 backends the FLOAT wavefront chain can
-            # diverge from the true-f64 host chain near f32 rounding
-            # ties (msst19_engine module docstring), and a diverged
-            # MULTIPLICATIVE chain is NOT self-correcting on decode —
-            # the A*B/D predictor can amplify a 1-ulp seed without
-            # bound (observed: 256^3 field decoding to inf).  Streams
-            # from the softf64 wavefront (TDPS._device_exact) are
-            # bit-exact BY CONSTRUCTION and skip the check; so does
-            # the CPU backend (native f64, CI-gated).  Anything else
-            # is decode-verified on the host and re-encoded on
-            # failure — returned streams are always conformant.
-            if t_dev is not None and (
-                    me.jax.default_backend() == "cpu"
-                    or getattr(t_dev, "_device_exact", False)
+            # A FLOAT wavefront chain that diverged from the host's f64
+            # chain is NOT self-correcting on decode — the A*B/D
+            # predictor can amplify a 1-ulp seed without bound.  Streams
+            # whose parity is guaranteed (TDPS._device_exact: the CPU
+            # backend, CI-gated, and the softf64 wavefront) skip the
+            # check; anything else is decode-verified on the host and
+            # re-encoded there on failure — returned streams are always
+            # conformant.
+            if (getattr(t_dev, "_device_exact", False)
                     or me.verify_conformant(t_dev, data, pw_ratio)):
                 return t_dev
-            # fall through: host encode (auto declined / re-encode)
+            _tr.count("host_fallback.msst19")
     T = np.float32 if data.dtype == np.float32 else np.float64
     dt = DataType.FLOAT if T is np.float32 else DataType.DOUBLE
     data = np.ascontiguousarray(data, dtype=T)
@@ -897,7 +890,7 @@ def compress_prelog(data: np.ndarray, pw_ratio: float, fmin, fmax, *,
     else:
         # log2 happens on the HOST (libm-exact v_log2 above); the
         # transformed field then rides the classic DEVICE engine when
-        # engine allows — the pre-log "TPU path" with exact parity
+        # engine allows — the pre-log "device path" with exact parity
         tdps = classic_nd.compress_nd(
             shaped, rp, lrange, lmedian, max_range_radius=max_range_radius,
             sample_distance=sample_distance, pred_threshold=pred_threshold,
@@ -958,7 +951,7 @@ def decompress_pwrel(tdps: TDPS, shape, dtype, engine: str = "numpy",
                      as_jax: bool = False):
     """szd_float_pwr.c pre_log decoders (plain :1331+, MSST19 :1425+).
 
-    engine="jax"/"auto" routes MSST19 streams to the TPU device engine
+    engine="jax"/"auto" routes MSST19 streams to the device engine
     (sign/zero restore included on device; as_jax keeps the result in
     HBM).  Pre-log streams decode their classic body with the device
     engine but the exp2 restore stays on the host (libm parity)."""
@@ -976,11 +969,7 @@ def decompress_pwrel(tdps: TDPS, shape, dtype, engine: str = "numpy",
                 me = None
                 if engine == "jax":
                     raise
-            if me is not None and me.device_ok(
-                    engine, T, len(shape), n, device_out=as_jax,
-                    stair_key=(int(tdps.intervals),
-                               float(tdps.real_precision),
-                               int(tdps.plus_bits))):
+            if me is not None and me.device_ok(engine, T, len(shape), n):
                 return me.decompress(tdps, shape, dtype, as_jax=as_jax)
         out = decompress_msst19(tdps, shape, dtype).reshape(-1)
         if len(tdps.pwr_err_bound_bytes):

@@ -10,7 +10,7 @@ the reference kernels:
   double:   sz_double.c:5904 / :4900 — same structure in float64 with
             8-byte precision/mean/unpredictable fields
 
-The TPU engine (sz_tpu.ops/engine) reproduces these semantics with
+The device engine (sz_tpu/tpu/engine.py) reproduces these semantics with
 vectorized wavefront kernels; this module is the oracle it is tested
 against, and the fallback when JAX is unavailable.
 """
@@ -549,7 +549,7 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     """Host (numpy) encoder.  By default the point quantization runs the
     vectorized fixpoint (_encode_points_fast, ~100x the per-point Python
     loops); oracle=True forces the serial loop implementation the fast
-    path and the TPU engine are tested against."""
+    path and the device engine are tested against."""
     rank = data.ndim
     spec = _spec(rank, data.dtype)
     T = spec.T
@@ -636,7 +636,7 @@ def assemble_body(spec: _Spec, rp, quantization_intervals: int,
                   result_type, unpred_arr, size_type: int,
                   freq=None, tables=None, encoded=None) -> EncodeResult:
     """Serialize the regression-codec body (sz_float.c:7392-7473) from
-    already-computed streams.  Shared by the numpy oracle and the TPU
+    already-computed streams.  Shared by the numpy oracle and the device
     engine (sz_tpu.tpu.engine), which produce identical intermediates.
     `freq` optionally supplies a precomputed type histogram; `tables` /
     `encoded` a prebuilt Huffman table and device-packed bitstream."""
@@ -861,7 +861,7 @@ def _encode_points_2d(data, dbs, spec, use_reg, qcoeffs, rp, recip,
 @dataclasses.dataclass
 class ParsedBody:
     """Decoded regression-codec body streams, before point reconstruction.
-    Shared between the numpy decoder below and the TPU decoder
+    Shared between the numpy decoder below and the device decoder
     (sz_tpu.tpu.engine)."""
 
     spec: object

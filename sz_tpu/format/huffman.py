@@ -7,9 +7,9 @@ Huffman.c:76-114).  For byte-identical streams we therefore reproduce the
 same tree-construction algorithm — a small host-side computation over at
 most 2*65536 symbols — while the heavy work (frequency histogram, bit
 packing of millions of codes) is vectorized with numpy here and runs as
-TPU kernels in sz_tpu.ops.
+device kernels in sz_tpu/tpu.
 
-Design notes (TPU-first):
+Design notes (device-first):
   * tree build is O(#distinct symbols log n) on host — never a bottleneck;
   * encoding = table lookup of (code,len) per element + bitstream pack,
     both data-parallel; the numpy path below is the host reference, and

@@ -95,7 +95,12 @@ def decompress(blob: bytes, expected_size: int | None = None) -> bytes:
                 try:
                     return _native.zstd135_decompress(blob, n)
                 except RuntimeError:
-                    pass  # fall through to the system decoder
+                    if not _HAS_ZSTD:
+                        raise
+                    # fall through to the system decoder
+        if not _HAS_ZSTD:
+            raise RuntimeError("zstandard module unavailable and the "
+                               "vendored zstd could not decode the frame")
         d = _zstd.ZstdDecompressor()
         return d.decompress(blob, max_output_size=expected_size or 0)
     return zlib.decompress(blob)

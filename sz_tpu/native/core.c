@@ -1,6 +1,6 @@
 /* sz_tpu native host runtime.
  *
- * The TPU engine (sz_tpu/tpu/engine.py) does the data-parallel heavy
+ * The device engine (sz_tpu/tpu/engine.py) does the data-parallel heavy
  * lifting on-device; this small C library covers the strictly-serial
  * host-side pieces where Python/numpy would dominate the wall clock:
  *   - ordered float accumulation (C `acc += x` semantics, needed for
@@ -3446,7 +3446,7 @@ void pack_w_bits(const uint8_t *vals, int64_t n, int w, uint8_t *out) {
 }
 
 /* MSB-first fixed-width (w <= 24) bit pack of int32 symbol values.
- * Feeds the TPU decode path: the packed stream uploads ~w/16 of the
+ * Feeds the device decode path: the packed stream uploads ~w/16 of the
  * raw uint16 types and unpacks on device with two word gathers per
  * symbol (sz_tpu/tpu/engine._delattice_packed_fn).  OpenMP chunks are
  * 8-symbol aligned so every chunk starts on a byte boundary. */

@@ -1,6 +1,6 @@
 """Slab-parallel (data-parallel) compression over a device mesh.
 
-This is the TPU-native re-expression of the reference's two scaling
+This is the device-mesh re-expression of the reference's two scaling
 mechanisms (SURVEY §2.3):
 
   * OpenMP block-parallel codec (`SZ_compress_float_3D_MDQ_openmp`,
@@ -96,15 +96,6 @@ def _mesh(n_devices: int) -> Mesh:
     return Mesh(np.array(jax.devices()[:n_devices]), (AXIS,))
 
 
-def _jit(f, backend: str):
-    """jit with bit-strict options (engine._strict_jit rationale: XLA:CPU
-    FMA-contracts inside fusions, breaking parity with the serial C)."""
-    if backend == "cpu":
-        return jax.jit(f, compiler_options={
-            "xla_disable_hlo_passes": "fusion"})
-    return jax.jit(f)
-
-
 # ---------------------------------------------------------------------------
 # Sharded stage programs (cached per mesh size × slab shape × dtype)
 # ---------------------------------------------------------------------------
@@ -152,8 +143,9 @@ def _encode_stages(n_dev: int, lshape: tuple, dtype_str: str,
                          in_specs=(dspec, v, v, v, v, v, v, v),
                          out_specs=(P(AXIS), P(AXIS), P(AXIS)),
                          check_vma=False)
-    return (_jit(sums_sh, backend), _jit(select_sh, backend),
-            _jit(quant_sh, backend))
+    jit = engine._strict_jit
+    return (jit(sums_sh, backend), jit(select_sh, backend),
+            jit(quant_sh, backend))
 
 
 @functools.lru_cache(maxsize=8)
@@ -170,7 +162,7 @@ def _range_stage(n_dev: int, lshape: tuple, backend: str):
 
     sh = shard_map(local, mesh=mesh, in_specs=(dspec,),
                    out_specs=(P(AXIS), P(AXIS)), check_vma=False)
-    return _jit(sh, backend)
+    return engine._strict_jit(sh, backend)
 
 
 @functools.lru_cache(maxsize=8)
@@ -197,7 +189,7 @@ def _optgather_stage(n_dev: int, lshape: tuple, dtype_str: str,
 
     sh = shard_map(local, mesh=mesh, in_specs=(dspec,),
                    out_specs=(P(AXIS),) * 3, check_vma=False)
-    return _jit(sh, backend), len(midx), len(sidx)
+    return engine._strict_jit(sh, backend), len(midx), len(sidx)
 
 
 @functools.lru_cache(maxsize=8)
@@ -217,7 +209,7 @@ def _maskvals_stage(n_dev: int, lshape: tuple, dtype_str: str, k: int,
 
     sh = shard_map(local, mesh=mesh, in_specs=(dspec, P(AXIS), P(AXIS)),
                    out_specs=(P(AXIS), P(AXIS)), check_vma=False)
-    return _jit(sh, backend)
+    return engine._strict_jit(sh, backend)
 
 
 @functools.lru_cache(maxsize=16)
@@ -231,7 +223,7 @@ def _bitpack_stage(n_dev: int, npts: int, out_bytes: int, backend: str):
 
     sh = shard_map(local, mesh=mesh, in_specs=(P(AXIS), P(AXIS), P(AXIS)),
                    out_specs=P(AXIS), check_vma=False)
-    return _jit(sh, backend)
+    return engine._strict_jit(sh, backend)
 
 
 @functools.lru_cache(maxsize=16)
@@ -254,7 +246,7 @@ def _decode_stage(n_dev: int, lshape: tuple, dtype_str: str,
 
     sh = shard_map(local, mesh=mesh, in_specs=(P(AXIS),) * 8,
                    out_specs=P(AXIS), check_vma=False)
-    return _jit(sh, backend)
+    return engine._strict_jit(sh, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +279,7 @@ def compress_sharded(data, cfg: SZConfig = DEFAULT_CONFIG,
     lives with NO host round-trip of the lattice (per-slab range scan,
     optimizer sampling gathers and dense-mean extraction all run as
     sharded dispatches; only compact vectors and the streams cross the
-    link).
+    bus).
     """
     is_dev = api._is_jax_array(data)
     if not is_dev:
@@ -478,7 +470,7 @@ def compress_sharded(data, cfg: SZConfig = DEFAULT_CONFIG,
     out_bytes = engine._pad_pow2(max(nbytes) + 8)
     # same 1 MB-granularity download cut as engine.compress: the pow2
     # padding keeps the kernel shape-cached but would up-to-double the
-    # per-slab D2H transfer on link-bound hosts
+    # per-slab D2H transfer
     cut = min(out_bytes, ((max(nbytes) + 8 + (1 << 20) - 1) >> 20) << 20)
     packed_d = _bitpack_stage(n_devices, n_local, out_bytes, backend)(
         t_stream_d, jnp.asarray(code_hi), jnp.asarray(code_len))

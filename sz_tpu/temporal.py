@@ -15,7 +15,7 @@ multi-variable frame per step (SZ_compress_ts, sz.c:1071-1141):
 
 The temporal predictor has no intra-step dependence — it is purely
 elementwise against the previous reconstruction, i.e. embarrassingly
-parallel (on TPU this is a fused elementwise kernel; a run of steps is a
+parallel (on the device this is a fused elementwise kernel; a run of steps is a
 `lax.scan` carrying the reconstruction).  The host oracle below defines
 the exact arithmetic contract.
 """
@@ -85,17 +85,15 @@ def optimize_intervals_1d_ts(flat, prev, real_precision, max_range_radius,
 
 
 def _ts_step_jax(flat, prev, rp, intervals, radius, req_length, median):
-    """TPU form of the temporal kernel: the previous-step predictor has
+    """Device form of the temporal kernel: the previous-step predictor has
     no intra-step dependence, so quantization, the epsilon recheck and
     even the escape bit-truncation are one fused elementwise pass
-    (float32; float64 falls back to the host loop because TPU's x64
-    emulation cannot bitcast).  Returns (types, recon, esc_mask) as
+    (float32; float64 runs the host loop).  Returns (types, recon, esc_mask) as
     numpy arrays; the small ordered escape-byte chain stays on host."""
     from sz_tpu.tpu import engine as _eng  # enables jax x64 + cache
     jax = _eng.jax
     jnp = _eng.jnp
 
-    @jax.jit
     def step(cur, prv):
         T = cur.dtype
         check_radius = (intervals - 1) * rp  # double
@@ -122,6 +120,7 @@ def _ts_step_jax(flat, prev, rp, intervals, radius, req_length, median):
         rec = jnp.where(esc, trunc, rec)
         return t, rec, esc
 
+    step = _eng._strict_jit(step, jax.default_backend())
     t, rec, esc = step(jnp.asarray(flat), jnp.asarray(prev))
     return np.asarray(t), np.asarray(rec), np.asarray(esc)
 
@@ -244,7 +243,6 @@ def _ts_device_step_fn(n: int, k: int):
     jax = _eng.jax
     jnp = _eng.jnp
 
-    @jax.jit
     def f(cur, prv, rp64, intervals, radius, req_length, median):
         T = cur.dtype
         check_radius = (intervals - 1).astype(jnp.float64) * rp64
@@ -271,7 +269,7 @@ def _ts_device_step_fn(n: int, k: int):
         bits = jax.lax.bitcast_convert_type(norm, jnp.uint32) & mask
         trunc = jax.lax.bitcast_convert_type(bits, jnp.float32) + median
         rec = jnp.where(esc, trunc, rec)
-        hist = _eng._sorted_histogram(t)
+        hist = _eng.histogram(t)
         # compact escape values + indices (cumsum + index scatter)
         rankc = jnp.cumsum(esc.astype(jnp.int32)) - 1
         idx = jnp.where(esc, jnp.minimum(rankc, k), k)
@@ -280,7 +278,7 @@ def _ts_device_step_fn(n: int, k: int):
         vals = jnp.take(cur, sel, mode="fill", fill_value=0.0)
         return t.astype(jnp.uint16), rec, hist, vals, sel
 
-    return f
+    return _eng._strict_jit(f, jax.default_backend())
 
 
 def compress_1d_ts_device(flat_dev, prev_dev, real_precision, value_range,
@@ -289,10 +287,10 @@ def compress_1d_ts_device(flat_dev, prev_dev, real_precision, value_range,
                           opt_quant_mode: int = 1,
                           fixed_intervals: int = 0):
     """Device-resident temporal step (float32): snapshots produced on
-    the TPU compress against the carried on-device history with no host
+    the device compress against the carried on-device history with no host
     round-trip of the lattice — only compact vectors (optimizer
     samples, escape values, histogram) and the entropy-coded stream
-    cross the link.  Returns (TDPS, recon as a device array); streams
+    cross the bus.  Returns (TDPS, recon as a device array); streams
     and recon are byte/bit-identical to compress_1d_ts.
     """
     from sz_tpu.tpu import engine as _eng
@@ -361,7 +359,7 @@ def compress_1d_ts_device(flat_dev, prev_dev, real_precision, value_range,
     if 0 < max_len <= 32 and total_bits > 0:
         nbytes = (total_bits + 7) // 8
         be = _eng.jax.default_backend()
-        body = _eng.pack_stream_device(t_d, tables, freq, n, nbytes,
+        body = _eng.pack_stream_device(t_d, tables, n, nbytes,
                                        be)[:nbytes].tobytes()
     else:  # pragma: no cover - pathological trees
         body = huffman.encode(tables, np.asarray(t_d).astype(np.int32))
@@ -418,7 +416,7 @@ def _ts_decode_fn(n: int, k: int, dstr: str):
 def decompress_1d_ts_device(tdps: TDPS, prev, n: int, dtype):
     """Device analog of decompress_1d_ts: the type stream decodes with
     the on-chip FSM kernel (zero host Huffman pass — only the raw coded
-    bytes cross the link), the elementwise temporal restore
+    bytes cross the bus), the elementwise temporal restore
     (szd_float_ts.c:19 arithmetic, f64 contract) and the escape scatter
     run on device, and the returned reconstruction stays device-resident
     (the next step's history).  Returns None when the stream is outside
@@ -433,8 +431,7 @@ def decompress_1d_ts_device(tdps: TDPS, prev, n: int, dtype):
     tree = huffman.deserialize_tree(tdps.type_array[8:8 + tsize],
                                     node_count)
     t_dev = _eng._device_decode_stream(
-        (*tree, node_count), tdps.type_array[8 + tsize:], n,
-        jax.default_backend())
+        (*tree, node_count), tdps.type_array[8 + tsize:], n)
     if t_dev is None:
         return None
     n_esc = int(jnp.sum(jnp.equal(t_dev[:n], 0),

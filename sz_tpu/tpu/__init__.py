@@ -1,1 +1,1 @@
-"""TPU-native (JAX/XLA) compute engine for sz_tpu."""
+"""Device (JAX/XLA) compute engines for sz_tpu."""

@@ -1,4 +1,4 @@
-"""TPU device engine for the classic SZ1.4 MDQ codec — identical bytes.
+"""Device engine for the classic SZ1.4 MDQ codec — identical bytes.
 
 Device analog of sz_tpu/core/classic_nd.py (the oracle for
 SZ_compress_float_{2,3,4}D_MDQ, sz_float.c:610/946/1479, and the double
@@ -22,13 +22,9 @@ classic kernels' POSITIONAL predictors:
   Huffman bit-pack) reuses the regression engine's device formulations.
 
 Arithmetic parity: every jnp op rounds separately (engine._strict_jit
-disables XLA:CPU's mul+add contraction; TPU v5e does not contract).
+disables XLA:CPU's mul+add contraction; XLA:GPU does not contract).
 The float kernels' double intermediates (`fabs(diff)*recip + 1` in C
-promotes to double) run through XLA:TPU's extended-precision f64
-emulation; the final rounding back to float32 was measured bit-exact
-(0 mismatches / 4.2M on v5e across the itv chain).  float64 DATA is
-CPU-backend only: TPU's f64 emulation cannot bitcast (escape
-truncation) and raw f64 results are not IEEE-bit-exact.
+promotes to double) run in IEEE f64 on the CPU and the GPU alike.
 """
 
 from __future__ import annotations
@@ -44,7 +40,6 @@ from sz_tpu.format import bytes_util as bu
 from sz_tpu.format import huffman
 from sz_tpu.format.tdps import TDPS
 from sz_tpu.tpu import engine as eng
-from sz_tpu.tpu import hist_kernel as _hk
 from sz_tpu.utils import trace as _tr
 
 jax = eng.jax
@@ -65,8 +60,7 @@ def _vshape(shape: tuple) -> tuple:
 
 def _esc_recon_dev(data, req_length, median):
     """Device escape reconstruction: median-offset binary truncation
-    (dataCompression.c:454 / classic_nd._esc_recon_vec).  float32 only
-    on TPU (f64 emulation cannot bitcast)."""
+    (dataCompression.c:454 / classic_nd._esc_recon_vec)."""
     T = data.dtype
     if T == jnp.float32:
         ubits, width = jnp.uint32, 32
@@ -214,10 +208,7 @@ def _encode_fn(vshape: tuple, dtype_str: str, dbl: bool,
 
         t_flat = t.reshape(-1)
         t_stream = t_flat.astype(jnp.uint16)
-        # MXU one-hot histogram: the sort-based fallback allocates
-        # multiple full-stream copies and faulted the TPU worker at
-        # 512^3 (134M-symbol bitonic sort)
-        hist = _hk.histogram(t_flat, interpret=backend in ("cpu", "raw"))
+        hist = eng.histogram(t_flat)
         esc_vals = _esc_vals_raster(t_flat, data.reshape(-1), ESC_K)
         return t_stream, hist, esc_vals, jnp.max(its)
 
@@ -399,7 +390,7 @@ def compress(data: np.ndarray, real_precision: float, value_range,
     if dev_pack and 0 < max_len <= 32 and total_bits > 0:
         nbytes = (total_bits + 7) // 8
         with _tr.trace("bitpack_device"):
-            packed = eng.pack_stream_device(t_stream_d, tables, freq,
+            packed = eng.pack_stream_device(t_stream_d, tables,
                                             n, nbytes, be)
         body = packed[:nbytes].tobytes()
     else:
@@ -443,9 +434,9 @@ def decompress(tdps: TDPS, shape, dtype, as_jax: bool = False):
     shape = tuple(int(s) for s in shape)
     dstr = np.dtype(T).str.lstrip("<>=")
     be = jax.default_backend()
-    # device-side FSM Huffman decode (same policy knob as the
-    # regression codec): zero host FSM pass; envelope/sync failures
-    # fall back to the host decoder below
+    # device-side FSM Huffman decode (same policy as the regression
+    # codec): zero host FSM pass; a sync failure falls back to the
+    # host decoder below
     use_dd = eng.device_decode_policy(be)
     t_dev = None
     if use_dd:
@@ -456,7 +447,7 @@ def decompress(tdps: TDPS, shape, dtype, as_jax: bool = False):
             tdps.type_array[8:8 + tsize], node_count)
         with _tr.trace("huffman_device"):
             t_dev = eng._device_decode_stream(
-                (*tree, node_count), tdps.type_array[8 + tsize:], n, be)
+                (*tree, node_count), tdps.type_array[8 + tsize:], n)
     if t_dev is None:
         with _tr.trace("huffman_decode"):
             types = huffman.decode_with_tree(tdps.type_array, n)

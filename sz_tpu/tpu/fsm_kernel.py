@@ -1,40 +1,36 @@
-"""Pallas TPU Huffman DECODE: speculative chunk-parallel bit-FSM.
+"""Huffman DECODE on the GPU: speculative chunk-parallel bit FSM
+(Pallas, Triton route).
 
-TPU-native form of the C speculative byte-FSM decoder
-(native/core.c huff_fsm_decode_par, itself the parallel form of the
-reference's serial tree walk, Huffman.c decode/szd_float.c replay):
+GPU form of the C speculative byte-FSM decoder (native/core.c
+huff_fsm_decode_par, itself the parallel form of the reference's serial
+tree walk, Huffman.c decode):
 
-  * the bitstream splits into F-bit chunks, ONE CHUNK PER LANE of a
-    (R,128) tile.  Every lane consumes exactly one bit per step, so the
-    bit cursor stays uniform across lanes: bit extraction is a static
-    shift of the current word tile, and the tree-walk transition is a
-    windowed VMEM table lookup (trans[2*state+bit] via K dynamic lane
-    gathers + selects — the pack2 lookup machinery).  Huffman streams
-    self-synchronize, so decoding every chunk speculatively from the
-    ROOT converges to the true state trajectory within a few codewords.
-  * kernel A (speculative sweep): all chunks decode from root,
-    emitting per-bit records (symbol | emit-flag, 0 when no leaf) at
-    STATIC output rows, plus per-chunk (state, count) snapshots at bit
-    P and at the chunk end.
-  * reconciliation (XLA, O(L)): chunk c's true entry state is chunk
-    c-1's speculative exit state (chunk 0 starts at root, which is
-    exact; induction holds when every chunk verifies).
-  * kernel B (prefix fix): re-decodes only the first P bits of each
-    chunk from its true entry, emitting corrected records and
-    verifying state(P) matches the speculative snapshot — if ANY chunk
-    fails to self-sync within P bits (never observed on real streams;
-    the C code keeps the same bail-out) the caller falls back to the
-    host decoder.
-  * compaction (kernel C): the corrected record rows are concatenated
-    per chunk with the pack2 merge tree — an emitting record is a
-    32-bit field holding the symbol, a non-emitting record contributes
-    ZERO bits — so the tree's output words ARE the dense u32 symbol
-    stream, placed at the chunk's true output offset by the same SMEM
-    running accumulator + read-OR-write window DMA as pack2.
+  * the coded bitstream splits into F-bit chunks, ONE CHUNK PER GPU
+    THREAD: a Triton program holds BLOCK chunks as one vector, one lane
+    per thread, and walks them in lockstep one 32-bit word at a time.
+    The tree walk is a table lookup trans[2*state + bit] (a gather from
+    a table of 2 x nodes words that stays in L1).
+  * pass A (speculative): every chunk decodes from the ROOT and keeps
+    its (state, symbol count) at bit P and at its end.  Huffman codes
+    self-synchronize, so a chunk that starts mid-codeword is back on
+    the true state trajectory within a few codewords.
+  * reconcile (XLA): chunk c's true entry state is chunk c-1's
+    speculative exit state (chunk 0 starts at the root, which is exact;
+    the induction holds when every chunk verifies).
+  * pass B (verify): re-decode the first P bits of each chunk from its
+    true entry.  Its state at P must equal pass A's snapshot, and the
+    chunk's true symbol count is count_B(P) + count_A(end) - count_A(P).
+  * offsets (XLA): exclusive cumsum of the true counts.
+  * pass C (emit): decode each chunk from its true entry and scatter
+    its symbols at its offset.
 
-Everything reuses kernel machinery proven bit-exact in pack2
-(tpu/pack_kernel.py): window lane-gather lookups, the balanced concat
-tree, in-kernel brev, SMEM accumulators, RMW placement.
+There is no per-bit record buffer: device memory is the word stream,
+O(chunks) state and the output.  Per-chunk bit budgets are computed on
+the host in int64, so streams of 2^31 bits and more decode in the same
+single pipeline.  A chunk that fails to self-sync within P bits makes
+`ok` false; decode() then reruns with P = F (a full chain-repair pass
+that accepts any chunk merging anywhere inside itself), and the caller
+falls back to the host decoder when that fails too.
 """
 
 from __future__ import annotations
@@ -46,501 +42,185 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from sz_tpu.tpu import pack_kernel as _pk
+from sz_tpu.utils import trace as _tr
 
-_U32 = jnp.uint32
+F_BITS = 16384          # bits per chunk (one GPU thread each)
+# speculative sync window: a 1.1 Gbit stream (512^3 field) needed 2048
+# bits on an H100, and pass B's length barely moves the kernel time
+P_BITS = 4096
+BLOCK = 128             # chunks per Triton program (4 warps)
 
-F_BITS = 16384          # bits per lane-chunk (= pack2's S2 for kernel C)
-P_BITS = 2048           # speculative sync window (C uses 4096 BYTES)
-MAX_NODES = 8192        # transition window cap: K = 2*nodes/128 <= 128
+_LEAF = np.uint32(0x80000000)
 
 
 def build_trans(L, R, C, T) -> np.ndarray:
-    """(K,128) uint32 transition window: trans[2s+b] = child of node s
-    on bit b; leaves encode (0x80000000 | symbol) and reset to root."""
+    """Flat uint32 transition table: trans[2s+b] = child of node s on
+    bit b; a leaf child encodes (0x80000000 | symbol) and the walk
+    restarts at the root."""
     nc = len(L)
     s = np.arange(nc, dtype=np.int64)
-    out = np.zeros(((2 * nc + 127) // 128) * 128, np.uint32)
+    out = np.zeros(2 * nc, np.uint32)
     for b, kid in ((0, np.asarray(L)), (1, np.asarray(R))):
         kid = kid.astype(np.int64)
         leaf = np.asarray(T)[kid] != 0
-        val = np.where(leaf,
-                       np.uint32(0x80000000)
-                       | np.asarray(C)[kid].astype(np.uint32),
+        val = np.where(leaf, _LEAF | np.asarray(C)[kid].astype(np.uint32),
                        kid.astype(np.uint32))
         out[2 * s + b] = val
-    return out.reshape(-1, 128)
+    return out
 
 
-def _make_fsm_kernel(K: int, R: int, steps: int, pc: int):
-    """FSM sweep kernel: grid over 32-bit word steps; one chunk per
-    lane.  pc = snapshot step (state/count at bit 32*pc).  The stream
-    bit length arrives as an SMEM scalar so one compiled kernel serves
-    every stream in a (K, R) size bucket."""
+def _sweep_kernel(nwords: int, snap_w: int, emit: bool):
+    """One pass over every chunk's first `nwords` words.  Count mode
+    returns (state, count) at word `snap_w` and at the end; emit mode
+    scatters each symbol at its chunk offset + running count."""
 
-    def kernel(tb_ref, trans_ref, entry_ref, words_ref, rec_ref,
-               snap_ref, end_ref, state, cnt):
-        g = pl.program_id(0)
-        total_bits = tb_ref[0]
+    def kernel(*refs):
+        if emit:
+            trans_ref, entry_ref, nbits_ref, wt_ref, offs_ref, out_ref = refs
+            cap = out_ref.shape[0]
+        else:
+            (trans_ref, entry_ref, nbits_ref, wt_ref,
+             end_ref, snap_ref) = refs
+        sl = pl.ds(pl.program_id(0) * BLOCK, BLOCK)
+        nb = nbits_ref[sl]
+        st = entry_ref[sl]
+        cnt = offs_ref[sl] if emit else jnp.zeros((BLOCK,), jnp.int32)
 
-        @pl.when(g == jnp.int32(0))
-        def _():
-            state[...] = entry_ref[...]
-            cnt[...] = jnp.zeros((R, 128), jnp.int32)
+        def body(j, carry):
+            st, cnt, sst, scnt = carry
+            w = wt_ref[j, sl]
+            for b in range(32):
+                bit = ((w >> jnp.uint32(31 - b)) & jnp.uint32(1)).astype(
+                    jnp.int32)
+                val = trans_ref[2 * st + bit]
+                live = j * 32 + b < nb
+                hit = ((val & _LEAF) != 0) & live
+                if emit:
+                    # idle lanes aim at the spare last slot: a finished
+                    # chunk's cursor equals the next chunk's first
+                    # position, and a masked lane must not alias it
+                    put = hit & (cnt < cap - 1)
+                    plt.store(out_ref.at[jnp.where(put, cnt, cap - 1)],
+                              (val & jnp.uint32(0x7FFFFFFF)).astype(
+                                  jnp.int32),
+                              mask=put)
+                cnt = cnt + hit.astype(jnp.int32)
+                st = jnp.where(hit, 0, jnp.where(
+                    live, (val & jnp.uint32(0x7FFFFFFF)).astype(jnp.int32),
+                    st))
+            if not emit:
+                at = j == snap_w - 1
+                sst = jnp.where(at, st, sst)
+                scnt = jnp.where(at, cnt, scnt)
+            return st, cnt, sst, scnt
 
-        w = words_ref[0]                              # (R,128) u32
-        chunk = (jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0) * 128
-                 + jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1))
-        base_bit = chunk * jnp.int32(F_BITS) + g * jnp.int32(32)
-        st = state[...]
-        c = cnt[...]
-        for b in range(32):
-            bit = ((w >> jnp.uint32(31 - b)) & jnp.uint32(1)).astype(
-                jnp.int32)
-            idx = 2 * st + bit
-            wrow = idx >> 7
-            wlane = idx & jnp.int32(127)
-            val = jnp.zeros((R, 128), _U32)
-            for k in range(K):
-                gth = _pk._lane_gather(
-                    jnp.broadcast_to(trans_ref[k].reshape(1, 128),
-                                     (R, 128)), wlane)
-                val = jnp.where(wrow == jnp.int32(k), gth, val)
-            emit = ((val >> jnp.uint32(31)) != jnp.uint32(0)) & (
-                (base_bit + jnp.int32(b)) < total_bits)
-            rec_ref[0, b] = jnp.where(
-                emit, (val & jnp.uint32(0xFFFF)) | jnp.uint32(0x10000),
-                jnp.uint32(0))
-            c = c + emit.astype(jnp.int32)
-            st = jnp.where(emit, jnp.int32(0),
-                           (val & jnp.uint32(0x7FFFFFFF)).astype(
-                               jnp.int32))
-        state[...] = st
-        cnt[...] = c
-
-        @pl.when(g == jnp.int32(pc - 1))
-        def _():
-            snap_ref[0] = st
-            snap_ref[1] = c
-
-        @pl.when(g == jnp.int32(steps - 1))
-        def _():
-            end_ref[0] = st
-            end_ref[1] = c
+        st, cnt, sst, scnt = jax.lax.fori_loop(
+            0, nwords, body, (st, cnt, st, cnt))
+        if not emit:
+            end_ref[0, sl] = st
+            end_ref[1, sl] = cnt
+            snap_ref[0, sl] = sst
+            snap_ref[1, sl] = scnt
 
     return kernel
 
 
-@functools.lru_cache(maxsize=32)
-def _fsm_call(K: int, R: int, steps: int, pc: int, interpret: bool):
-    kernel = _make_fsm_kernel(K, R, steps, pc)
-    z = np.int32(0)
+def _sweep(nwords: int, snap_w: int, Lp: int, interpret: bool,
+           out_len: int = 0):
+    emit = out_len > 0
+    if emit:
+        out_shape = jax.ShapeDtypeStruct((out_len,), jnp.int32)
+    else:
+        out_shape = (jax.ShapeDtypeStruct((2, Lp), jnp.int32),
+                     jax.ShapeDtypeStruct((2, Lp), jnp.int32))
     return pl.pallas_call(
-        kernel,
-        grid=(steps,),
-        in_specs=[
-            pl.BlockSpec((1,), lambda g: (z,),
-                         memory_space=pltpu.SMEM),          # total_bits
-            pl.BlockSpec((K, 128), lambda g: (z, z)),       # trans
-            pl.BlockSpec((R, 128), lambda g: (z, z)),       # entry
-            pl.BlockSpec((1, R, 128), lambda g: (g, z, z)),  # words
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 32, R, 128), lambda g: (g, z, z, z)),
-            pl.BlockSpec((2, R, 128), lambda g: (z, z, z)),  # snap
-            pl.BlockSpec((2, R, 128), lambda g: (z, z, z)),  # end
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((steps, 32, R, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((2, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((2, R, 128), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.int32),
-            pltpu.VMEM((R, 128), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024),
+        _sweep_kernel(nwords, snap_w, emit),
+        out_shape=out_shape,
+        grid=(Lp // BLOCK,),
+        compiler_params=plt.CompilerParams(num_warps=BLOCK // 32,
+                                           num_stages=1),
+        backend="triton",
         interpret=interpret,
+        name="huffman_fsm_emit" if emit else "huffman_fsm_count",
     )
 
 
 @functools.lru_cache(maxsize=32)
-def _fsm_call_b(K: int, R: int, steps: int, pc: int, interpret: bool):
-    """Kernel B (true-entry re-decode of each chunk's first pc word
-    steps) writing its record rows IN PLACE into kernel A's record
-    buffer (input_output_aliases) — the merged buffer needs no
-    concatenation copy, halving the ~4 B/coded-bit transient that
-    previously capped streams at 2^30 bits."""
-    inner = _make_fsm_kernel(K, R, pc, pc)
+def _decode_fn(ntrans: int, Lp: int, n_sym: int, f_bits: int,
+               p_bits: int, interpret: bool):
+    """Jitted A / reconcile / B / offsets / C pipeline for one
+    (table bucket, chunk bucket, symbol count, F, P) shape."""
+    fw, pw = f_bits // 32, p_bits // 32
+    out_len = n_sym + 9   # <= 7 junk symbols from the byte pad + spare
 
-    def kernel(tb_ref, trans_ref, entry_ref, words_ref, rec_in_ref,
-               rec_ref, snap_ref, end_ref, state, cnt):
-        del rec_in_ref  # aliased storage only; blocks >= pc keep A's rows
-        inner(tb_ref, trans_ref, entry_ref, words_ref, rec_ref,
-              snap_ref, end_ref, state, cnt)
+    def f(words_le, trans, nbits):
+        # the coded stream is big-endian: swap each little-endian load
+        w = words_le
+        w = ((w << 24) | ((w & 0xFF00) << 8) | ((w >> 8) & 0xFF00)
+             | (w >> 24))
+        wt = w.reshape(Lp, fw).T                         # (fw, Lp)
+        root = jnp.zeros((Lp,), jnp.int32)
+        end, snap = _sweep(fw, pw, Lp, interpret)(trans, root, nbits, wt)
+        entry = jnp.concatenate([root[:1], end[0, :-1]])
+        end_b, _ = _sweep(pw, pw, Lp, interpret)(trans, entry, nbits, wt)
+        # a chunk whose bits all lie within P is decoded exactly by pass
+        # B; every other chunk's exit state seeds its successor and must
+        # have synced by P
+        exempt = (nbits <= p_bits) & (nbits < f_bits)
+        ok = jnp.all(exempt | (end_b[0] == snap[0]))
+        true_cnt = end_b[1] + end[1] - snap[1]
+        total = jnp.sum(true_cnt)
+        # trailing byte-pad bits may emit junk symbols after the last
+        # real one; each consumes >= 1 of the <= 7 pad bits.  `ok` is a
+        # self-consistency check (sync + plausible count), not stream
+        # authentication, matching the reference decoder (Huffman.c:310)
+        ok = ok & (total >= n_sym) & (total <= n_sym + 7)
+        offs = jnp.cumsum(true_cnt) - true_cnt
+        out = _sweep(fw, pw, Lp, interpret, out_len)(
+            trans, entry, nbits, wt, offs)
+        return out[:n_sym], ok
 
-    z = np.int32(0)
-    return pl.pallas_call(
-        kernel,
-        grid=(pc,),
-        in_specs=[
-            pl.BlockSpec((1,), lambda g: (z,),
-                         memory_space=pltpu.SMEM),          # total_bits
-            pl.BlockSpec((K, 128), lambda g: (z, z)),       # trans
-            pl.BlockSpec((R, 128), lambda g: (z, z)),       # entry
-            pl.BlockSpec((1, R, 128), lambda g: (g, z, z)),  # words
-            pl.BlockSpec(memory_space=pltpu.ANY),           # rec_a
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 32, R, 128), lambda g: (g, z, z, z)),
-            pl.BlockSpec((2, R, 128), lambda g: (z, z, z)),  # snap
-            pl.BlockSpec((2, R, 128), lambda g: (z, z, z)),  # end
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((steps, 32, R, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((2, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((2, R, 128), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.int32),
-            pltpu.VMEM((R, 128), jnp.int32),
-        ],
-        input_output_aliases={4: 0},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
+    return jax.jit(f)
 
 
-def _make_compact_kernel(OW: int, WR: int, R8: int):
-    """pack2's merge-tree kernel over decode records: emitting records
-    are 32-bit fields holding the symbol, others contribute no bits;
-    the packed words ARE the dense symbol stream."""
-    S = F_BITS
-
-    def kernel(zero_ref, rev_ref, rec_ref, out_hbm, win, acc,
-               sem_r, sem_w):
-        del zero_ref
-        c = pl.program_id(0)
-
-        @pl.when(c == jnp.int32(0))
-        def _():
-            acc[0] = jnp.int32(0)
-            acc[1] = jnp.int32(0)
-
-        base_w, rem = acc[0], acc[1]
-        # clamp: a corrupted/adversarial stream can emit far more
-        # symbols than the caller-sized output; the window must never
-        # walk past the (R8,8,128) allocation (the caller's ok flag
-        # rejects the result, but only after the kernel ran)
-        row0 = jnp.minimum(base_w >> 10, jnp.int32(R8 - WR))
-        rd = pltpu.make_async_copy(
-            out_hbm.at[pl.ds(row0, WR)], win, sem_r)
-        rd.start()
-
-        sq = rec_ref[0].reshape(128, 128)
-        rev = jnp.broadcast_to(rev_ref[...][:1], (128, 128))
-        sqb = _pk._lane_gather(_pk._lane_gather(sq, rev).T, rev)
-        lens = ((sqb >> jnp.uint32(16)) << jnp.uint32(5)).astype(
-            jnp.int32)                                # 0 or 32
-        c32 = sqb & jnp.uint32(0xFFFF)                # 32-bit field
-
-        cb = jnp.sum(lens, axis=1, keepdims=True, promote_integers=False)
-        chunk_bits = jnp.sum(cb, axis=0, keepdims=True,
-                             promote_integers=False)[0, 0]
-
-        state = c32.reshape(1, S)
-        dw, sb = lens.reshape(1, S) >> 5, lens.reshape(1, S) & 31
-        h = S // 2
-        while h >= 128:
-            state, dw, sb = _pk._merge_a(state, dw, sb, h)
-            h //= 2
-        state = state.T
-        dw = dw.reshape(128, 1)
-        sb = sb.reshape(128, 1)
-        while h >= 8:
-            state, dw, sb = _pk._merge_b(state, dw, sb, h)
-            h //= 2
-        while h >= 1:
-            state, dw, sb = _pk._merge_b8(state, dw, sb, h)
-            h //= 2
-        state = state[:1]
-
-        # all fields are 32-bit aligned: rem is always 0, placement is
-        # a pure word-offset OR into the window
-        z1 = jnp.zeros((1, OW - S), _U32)
-        w = jnp.concatenate([state, z1], 1)
-        wide = jnp.concatenate(
-            [w, jnp.zeros((1, WR * 1024 - OW), _U32)], 1)
-        wide = pltpu.roll(
-            wide, jnp.minimum(base_w - (row0 << 10),
-                              jnp.int32(WR * 1024 - OW)), 1)
-        rd.wait()
-        win[...] = win[...] | wide.reshape(WR, 8, 128)
-        wr = pltpu.make_async_copy(
-            win, out_hbm.at[pl.ds(row0, WR)], sem_w)
-        wr.start()
-
-        t = rem + chunk_bits
-        acc[0] = base_w + (t >> 5)
-        acc[1] = t & jnp.int32(31)
-        wr.wait()
-
-    return kernel
+def chunk_layout(total_bits: int, f_bits: int = F_BITS):
+    """(Lp, nbits): the chunk count padded to a bucket (a multiple of
+    BLOCK, sixteen buckets per power of two, so one compiled program
+    serves streams of nearby length at <= 1/8 padding) and each
+    chunk's live bit count, computed in int64 so no stream length
+    overflows."""
+    L = max(-(-total_bits // f_bits), 1)
+    step = max(BLOCK, (1 << (L - 1).bit_length()) // 16)
+    Lp = -(-L // step) * step
+    starts = np.arange(Lp, dtype=np.int64) * f_bits
+    nbits = np.clip(total_bits - starts, 0, f_bits).astype(np.int32)
+    return Lp, nbits
 
 
-@functools.lru_cache(maxsize=32)
-def _compact_call(C: int, R8: int, interpret: bool):
-    S = F_BITS
-    OW = S + 128
-    WR = (OW + 1023) // 1024 + 1
-    kernel = _make_compact_kernel(OW, WR, R8)
-    z = np.int32(0)
-    return pl.pallas_call(
-        kernel,
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),   # zeros -> out alias
-            pl.BlockSpec((8, 128), lambda c: (z, z)),       # rev7
-            pl.BlockSpec((1, 1, S), lambda c: (c, z, z)),   # records
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.HBM),
-        out_shape=jax.ShapeDtypeStruct((R8, 8, 128), jnp.uint32),
-        input_output_aliases={0: 0},
-        scratch_shapes=[
-            pltpu.VMEM((WR, 8, 128), jnp.uint32),
-            pltpu.SMEM((2,), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
-
-
-def bucket_rows(total_bits: int) -> int:
-    """Pow2-bucketed chunk-tile row count for a stream length."""
-    L = -(-total_bits // F_BITS)
-    R = max(-(-L // 128), 1)
-    return 1 << (R - 1).bit_length()
-
-
-def pad_words_to_bucket(words: np.ndarray, R: int) -> np.ndarray:
-    """Zero-pad a host u32 word stream to its (R,F) bucket size (the
-    decode_bits_core input contract); shared by the engine wrapper and
-    decode_bits_device."""
-    need = R * 128 * (F_BITS // 32)
-    if len(words) < need:
-        words = np.concatenate(
-            [words, np.zeros(need - len(words), np.uint32)])
-    return words[:need]
-
-
-def decode_bits_core(words, trans, tb, n_sym: int, R: int,
-                     *, interpret: bool = False,
-                     p_bits: int = P_BITS):
-    """Traceable device Huffman decode (jit-cacheable: shapes depend
-    only on the (K, R, n_sym) bucket; the exact bit length `tb` is a
-    traced scalar).
-
-    words: (R*128*F_BITS//32,) uint32 — the big-endian coded bitstream,
-    zero-padded (host: np.frombuffer(encoded + pad, '>u4')).  trans:
-    (K,128) uint32 from build_trans.  Returns (syms, ok): syms (n_sym,)
-    int32, valid when ok (a scalar bool: every chunk self-synced
-    within p_bits and the count reaches n_sym; callers should retry
-    with p_bits=F_BITS — one full chain-repair pass, which accepts any
-    chunk that merges ANYWHERE inside its own chunk — then fall back
-    to the host decoder when still not ok)."""
-    K = trans.shape[0]
-    Lp = R * 128
-    Fw = F_BITS // 32
-    steps = Fw
-    pc = p_bits // 32
-    need = Lp * Fw
-    w = words.astype(jnp.uint32)
-    wt = w[:need].reshape(Lp, Fw).T.reshape(Fw, R, 128)
-    tb = tb.reshape(1).astype(jnp.int32)
-    total_bits = tb[0]
-
-    zero_entry = jnp.zeros((R, 128), jnp.int32)
-    rec_a, snap, end = _fsm_call(K, R, steps, pc, interpret)(
-        tb, trans, zero_entry, wt)
-    exit_state = end[0].reshape(-1)
-    # true entry of chunk c = speculative exit of chunk c-1
-    entry = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), exit_state[:-1]]).reshape(R, 128)
-    # kernel B writes its rows in place into A's record buffer
-    # (input_output_aliases): rec IS the merged record set
-    rec, _snap_b, end_b = _fsm_call_b(K, R, steps, pc, interpret)(
-        tb, trans, entry, wt, rec_a)
-    # verification: state at bit P from the true entry must equal the
-    # speculative snapshot (self-sync within the window).  Chunks whose
-    # REAL bits end at or before P need no check: kernel B decodes them
-    # exactly from the true entry and the speculative tail contributes
-    # nothing (emits past total_bits are masked) — this also covers the
-    # zero-padded virtual chunks, whose zero-walks cycle through the
-    # left spine at arbitrary phase and never "sync".
-    live = (jnp.arange(Lp, dtype=jnp.int32) * jnp.int32(F_BITS)
-            + jnp.int32(p_bits)) < total_bits
-    ok = jnp.all(jnp.where(live.reshape(R, 128),
-                           end_b[0] == snap[0], True))
-    true_cnt = (end_b[1] + end[1] - snap[1]).reshape(-1)
-    # trailing byte-pad bits of the stream may emit junk symbols after
-    # the last real one (callers pass total_bits rounded up to bytes);
-    # each junk symbol consumes >= 1 of the <= 7 pad bits, so the
-    # emitted count must land in [n_sym, n_sym + 7].  NOTE: `ok` is a
-    # SELF-CONSISTENCY check (sync + plausible count), not stream
-    # authentication — a corrupted stream that happens to sync and emit
-    # a count in range still returns wrong data with ok=True, matching
-    # the reference decoder's GIGO behavior (Huffman.c:310).
-    total = jnp.sum(true_cnt, promote_integers=False)
-    ok = ok & (total >= jnp.int32(n_sym)) & (total <= jnp.int32(n_sym + 7))
-
-    rec = rec.reshape(F_BITS, Lp).T                  # (Lp, F)
-
-    # + F_BITS//8 margin: trailing byte-pad junk symbols land past
-    # n_sym and must stay inside the RMW windows; R8 rounds to a power
-    # of two so the compaction kernel is shape-bucketed too
-    WR = (F_BITS + 128 + 1023) // 1024 + 1
-    R8 = (n_sym + F_BITS // 8 + 1023) // 1024 + WR
-    R8 = 1 << (R8 - 1).bit_length()
-    rev = jnp.asarray(np.broadcast_to(_pk._REV7, (8, 128)))
-    wordsout = _compact_call(Lp, R8, interpret)(
-        jnp.zeros((R8, 8, 128), jnp.uint32), rev,
-        rec.reshape(Lp, 1, F_BITS))
-    syms = wordsout.reshape(-1)[:n_sym].astype(jnp.int32)
+def decode(encoded: bytes, trans: np.ndarray, n_sym: int, *,
+           f_bits: int = F_BITS, p_bits: int = P_BITS,
+           interpret: bool = False):
+    """Device Huffman decode of a big-endian coded byte stream.
+    Returns (syms (n_sym,) int32 device array, ok device bool); syms
+    is valid only when ok.  When a chunk fails to sync within p_bits,
+    the pipeline runs once more with p_bits = f_bits (the full chain
+    repair, counted as "huffman_decode.repair_pass"); callers fall
+    back to the host decoder when that fails too."""
+    assert f_bits % 32 == 0 and p_bits % 32 == 0 and p_bits <= f_bits
+    Lp, nbits = chunk_layout(len(encoded) * 8, f_bits)
+    buf = np.zeros(Lp * (f_bits // 8), np.uint8)
+    buf[:len(encoded)] = np.frombuffer(encoded, np.uint8)
+    # table padded to a power of two: one program per tree-size bucket
+    tr = np.zeros(1 << max(int(len(trans) - 1).bit_length(), 1), np.uint32)
+    tr[:len(trans)] = trans
+    args = (jax.device_put(buf.view("<u4")), jax.device_put(tr),
+            jax.device_put(nbits))
+    syms, ok = _decode_fn(len(tr), Lp, n_sym, f_bits, p_bits,
+                          interpret)(*args)
+    if not bool(ok) and p_bits < f_bits:
+        _tr.count("huffman_decode.repair_pass")
+        syms, ok = _decode_fn(len(tr), Lp, n_sym, f_bits, f_bits,
+                              interpret)(*args)
     return syms, ok
-
-
-def decode_bits_device(words, trans, n_sym: int, total_bits: int,
-                       *, interpret: bool = False,
-                       p_bits: int = P_BITS):
-    """Host-convenience wrapper around decode_bits_core: pads the word
-    stream to its (R, F) bucket and passes the exact bit length."""
-    R = bucket_rows(total_bits)
-    w = pad_words_to_bucket(np.asarray(words, np.uint32), R)
-    return decode_bits_core(jnp.asarray(w), jnp.asarray(trans),
-                            jnp.asarray([total_bits], jnp.int32),
-                            n_sym, R, interpret=interpret,
-                            p_bits=p_bits)
-
-
-# ---------------------------------------------------------------------------
-# Segment-pipelined decode: streams past the single-allocation record-
-# buffer envelope (~2^30 coded bits: two pow2-bucketed 4 B/bit-slot
-# buffers OOM a 16 GB part at the next bucket) decode in SEGMENTS of
-# SEG_ROWS chunk-tile rows.  Huffman decoding is sequential only
-# through the chunk-entry STATES: segment s's first true entry is
-# segment s-1's last speculative exit (verified by the same in-window
-# sync check), so each segment runs the ordinary A/reconcile/B/compact
-# pipeline on its own bounded buffers and appends its symbols at the
-# running output offset.
-# ---------------------------------------------------------------------------
-
-SEG_ROWS = 64     # 64*128 chunks * F_BITS = 2^27 bits/segment:
-                  # record buffer + transpose stay ~0.5 GB each
-
-
-@functools.lru_cache(maxsize=16)
-def _seg_core_jit(K: int, R: int, out_cap_rows: int, interpret: bool,
-                  p_bits: int):
-    """Jitted _seg_core for a (K, R, cap) bucket: one compiled program
-    serves every segment (the eager form paid per-op dispatch for the
-    0.5 GB record-buffer transposes on every segment)."""
-    import jax as _jax
-
-    def f(words_seg, trans, tb_local, carry_entry):
-        return _seg_core(words_seg, trans, tb_local, carry_entry, R,
-                         out_cap_rows, interpret=interpret,
-                         p_bits=p_bits)
-
-    return _jax.jit(f)
-
-
-def _seg_core(words_seg, trans, tb_local, carry_entry, R: int,
-              out_cap_rows: int, *, interpret: bool, p_bits: int):
-    """One segment's A/reconcile/B/compact over LOCAL bit indices.
-    Returns (seg_syms u32 flat, seg_count i32, last_exit i32, ok)."""
-    K = trans.shape[0]
-    Lp = R * 128
-    Fw = F_BITS // 32
-    steps = Fw
-    pc = p_bits // 32
-    wt = words_seg.reshape(Lp, Fw).T.reshape(Fw, R, 128)
-    tb = tb_local.reshape(1).astype(jnp.int32)
-    total_bits = tb[0]
-
-    zero_entry = jnp.zeros((R, 128), jnp.int32)
-    rec_a, snap, end = _fsm_call(K, R, steps, pc, interpret)(
-        tb, trans, zero_entry, wt)
-    exit_state = end[0].reshape(-1)
-    entry = jnp.concatenate(
-        [carry_entry.reshape(1), exit_state[:-1]]).reshape(R, 128)
-    rec, _snap_b, end_b = _fsm_call_b(K, R, steps, pc, interpret)(
-        tb, trans, entry, wt, rec_a)
-    live = (jnp.arange(Lp, dtype=jnp.int32) * jnp.int32(F_BITS)
-            + jnp.int32(p_bits)) < total_bits
-    ok = jnp.all(jnp.where(live.reshape(R, 128),
-                           end_b[0] == snap[0], True))
-    true_cnt = (end_b[1] + end[1] - snap[1]).reshape(-1)
-    count = jnp.sum(true_cnt, promote_integers=False)
-
-    rec = rec.reshape(F_BITS, Lp).T
-    rev = jnp.asarray(np.broadcast_to(_pk._REV7, (8, 128)))
-    wordsout = _compact_call(Lp, out_cap_rows, interpret)(
-        jnp.zeros((out_cap_rows, 8, 128), jnp.uint32), rev,
-        rec.reshape(Lp, 1, F_BITS))
-    return wordsout.reshape(-1), count, exit_state[-1], ok
-
-
-def decode_bits_segmented(words, trans, total_bits: int, n_sym: int,
-                          *, seg_rows: int = SEG_ROWS,
-                          interpret: bool = False,
-                          p_bits: int = P_BITS):
-    """Chunk-segment-pipelined device Huffman decode for streams past
-    the single-allocation envelope.  total_bits is a HOST int (the
-    caller always knows len(encoded)), so per-segment local bit budgets
-    stay in int32 regardless of stream size.  Returns (syms (n_sym,)
-    i32 device, ok bool device) like decode_bits_core."""
-    R = bucket_rows(total_bits)
-    assert R > seg_rows, "use decode_bits_core inside the envelope"
-    w = pad_words_to_bucket(np.asarray(words, np.uint32), R)
-    seg_bits = seg_rows * 128 * F_BITS
-    seg_words = seg_rows * 128 * (F_BITS // 32)
-    n_seg = -(-R // seg_rows)
-    # per-segment output bucket: a valid stream emits <= n_sym total,
-    # and any segment's emissions are also bounded by its bit budget
-    WR = (F_BITS + 128 + 1023) // 1024 + 1
-    per_cap = min(n_sym + F_BITS // 8, seg_bits)
-    R8 = (per_cap + 1023) // 1024 + WR
-    R8 = 1 << (R8 - 1).bit_length()
-    out = jnp.zeros(n_sym + R8 * 1024 + 8, jnp.uint32)
-    offset = jnp.zeros((), jnp.int32)
-    carry = jnp.zeros((), jnp.int32)          # root
-    total_cnt = jnp.zeros((), jnp.int32)
-    ok_all = jnp.asarray(True)
-    trans_d = jnp.asarray(trans)
-    for s in range(n_seg):
-        start_bits = s * seg_bits
-        if start_bits >= total_bits:
-            break
-        tb_local = np.int32(min(total_bits - start_bits, seg_bits))
-        wseg = jnp.asarray(w[s * seg_words:(s + 1) * seg_words])
-        syms_s, cnt_s, exit_s, ok_s = _seg_core_jit(
-            trans.shape[0], seg_rows, R8, interpret, p_bits)(
-            wseg, trans_d, jnp.asarray([tb_local], jnp.int32), carry)
-        out = jax.lax.dynamic_update_slice(out, syms_s, (offset,))
-        offset = offset + cnt_s
-        total_cnt = total_cnt + cnt_s
-        carry = exit_s
-        ok_all = ok_all & ok_s
-    ok = (ok_all & (total_cnt >= jnp.int32(n_sym))
-          & (total_cnt <= jnp.int32(n_sym + 7)))
-    return out[:n_sym].astype(jnp.int32), ok

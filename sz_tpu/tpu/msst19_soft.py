@@ -4,8 +4,8 @@ The per-point quantize/reconstruct math of the MSST19 accelerated
 PW_REL codec (sz_float.c SZ_compress_float_3D_MDQ_MSST19 hot loop,
 szd_float.c decode replay), expressed over uint32 f32 BIT PATTERNS
 with the software-f64 chain ops from sz_tpu/tpu/softf64.py — true IEEE
-binary64 semantics on any backend, including inside Pallas TPU kernels
-(XLA:TPU's float-float f64 emulation rounds differently near f32 ties;
+binary64 semantics on any backend (a float-float f64 emulation rounds
+differently near f32 ties;
 this path is bit-exact with the host C chain BY CONSTRUCTION, retiring
 the decode-verify fallback for routes that use it).
 
@@ -194,7 +194,7 @@ def predict_bits_2d(m1, m2, d1):
     """2D float chain: pred = f32(f32(m1*m2) / d1) — the reference's
     2D float MSST19 kernel chains in SINGLE precision (sz_float.c
     quirk; the 3D kernel's `double temp` chains do not apply).  The
-    multiply is the exact RN24 product (soft, so TPU subnormal
+    multiply is the exact RN24 product (soft, so a backend's subnormal
     flushing can never leak in), the divide is the correctly rounded
     soft f32 division.  Unused factors are exactly 1.0."""
     e1, q1, f1 = _up(m1)

@@ -1,12 +1,12 @@
 """Device (jax) path for the random-access block codec.
 
 SURVEY 2.3: the randomAccess blockwise format (sz_float.c:7492-10106)
-is the natural on-TPU container — fixed-size edge-replicated blocks map
+is the natural device container — fixed-size edge-replicated blocks map
 onto a regular device grid with no cross-block dependence.  This module
 jits the per-block raster quantization/reconstruction as a `lax.scan`
 over the bs^rank cells, vectorized over all blocks at once; each step
 is one fused elementwise pass over the block axis, and the bordered
-reconstruction buffer stays in registers/VMEM for the whole scan.
+reconstruction buffer stays on chip for the whole scan.
 
 Arithmetic matches the RA kernels' double quantizer (core/rablock.py
 `_quant_cell`, sz_float.c:9751-9766) bit-for-bit; jax x64 is enabled by

@@ -2,15 +2,14 @@
 
 The MSST19 multiplicative chains (sz_float.c `double temp, temp2`
 predictor arithmetic, szd_float.c decode replay) need TRUE f64
-semantics: XLA:TPU's float-float emulation carries ~49 significand bits
+semantics: a float-float f64 emulation carries ~49 significand bits
 and rounds differently within ~2^-48 of f32 ties, which seeds unbounded
 divergence through the multiplicative predictor (msst19_engine module
 docstring).  This module implements the exact operations the chain
 needs in pure u32/i32/f32 jnp ops — correctly rounded by construction,
-traceable both under plain XLA and inside Pallas TPU kernels (no f64,
-no u32<->f32 casts, no 64-bit integers, probed-supported Mosaic ops
-only: u32 mul/shift-by-vector/unsigned-compare, i32<->f32 converts,
-bitcasts).
+traceable under plain XLA on backends without IEEE f64 (no f64, no
+u32<->f32 casts, no 64-bit integers: u32 mul/shift-by-vector/
+unsigned-compare, i32<->f32 converts, bitcasts).
 
 Key simplification: the MSST19 chain is SIGN-FREE.  Every predictor is
 a product/quotient (no additions), the cache-table key masks the sign
@@ -359,8 +358,7 @@ def pack_f32_rn(e, mh, ml):
     # shift amount: 29 for normals, + (-126 - e) extra for subnormals,
     # clamped to 54 (values below half the minimum subnormal round to
     # zero; exactly half ties to even = zero)
-    # clips stay in SIGNED i32 before the u32 casts: Mosaic has no
-    # unsigned vector min (arith.minui fails to legalize on TPU)
+    # clips stay in SIGNED i32 before the u32 casts
     t = jnp.clip(_i(29) + jnp.maximum(_i(0), _i(-126) - e),
                  _i(29), _i(54))
     tu = t.astype(_U32)

@@ -117,36 +117,21 @@ def test_classic_packed_types_decode():
                                   raw.view(np.uint32))
 
 
-def test_classic_device_decode_fsm(monkeypatch):
-    """SZ_TPU_DEVICE_DECODE=force routes the classic decoder through
-    the FSM kernel (interpret on CPU) when the stream fits the
-    envelope (smooth field -> small tree; noisy 1e-4 fields blow past
-    MAX_NODES and take the documented host fallback, also covered) —
-    reconstruction bit-identical to the host decoder either way."""
-    from sz_tpu.tpu import engine as eng
-
-    monkeypatch.setenv("SZ_TPU_DEVICE_DECODE", "force")
-    used = []
-    orig = eng._device_decode_stream
-
-    def spy(tree, encoded, n, be):
-        r = orig(tree, encoded, n, be)
-        used.append(r is not None)
-        return r
-
-    monkeypatch.setattr(eng, "_device_decode_stream", spy)
-    # smooth field: small tree (fits MAX_NODES), stream > 2^16 bits
+def test_classic_device_decode_fsm(device_decode_interpret):
+    """With the device decode on, the classic decoder runs the Triton
+    FSM kernel (interpret mode on CPU) — reconstruction bit-identical
+    to the host decoder, for a smooth field (small tree) and a noisy
+    1e-4 field (a tree of thousands of nodes)."""
+    used = device_decode_interpret
     d = _field((44, 40, 36), np.float32, seed=9, noise=0.02)
     vr = float(d.max() - d.min())
     med = np.float32(d.min() + vr / 2)
     t = classic_nd.compress_nd(d, 1e-3, vr, med, **KW)
-    assert len(t.type_array) * 8 > (1 << 16)
     out_h = classic_nd.decompress_nd(t, d.shape, np.float32)
     out_j = classic_nd.decompress_nd(t, d.shape, np.float32,
                                      engine="jax")
     assert np.array_equal(out_h, out_j)
     assert used == [True]  # the FSM path genuinely ran
-    # envelope fallback: noisy field -> huge table -> host decode
     used.clear()
     d2 = _field((30, 28, 26), np.float32, seed=3, noise=0.4)
     vr2 = float(d2.max() - d2.min())
@@ -156,4 +141,4 @@ def test_classic_device_decode_fsm(monkeypatch):
     o2j = classic_nd.decompress_nd(t2, d2.shape, np.float32,
                                    engine="jax")
     assert np.array_equal(o2h, o2j)
-    assert used == [False]
+    assert used == [True]

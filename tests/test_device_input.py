@@ -9,8 +9,8 @@ histogram/selection tail (optimizer._finish) — so parity here covers
 the full optimizer decision chain (intervals, dense_pos, use_mean,
 sequential mean fold), not just the quantize stages.
 
-Runs on the CPU backend (conftest pins the platform); the same parity
-on real TPU v5e is exercised by tools/tpu_timings.py --device-input.
+Runs on the CPU backend (conftest pins the platform); chip_smoke.py
+checks the same parity on the GPU.
 """
 
 import pathlib
@@ -26,15 +26,18 @@ from sz_tpu.core import regnd  # noqa: E402
 from sz_tpu.tpu import engine  # noqa: E402
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-REF_DATA = pathlib.Path("/root/reference/example/testdata/x86")
 
 KW = dict(max_range_radius=32768, sample_distance=100,
           pred_threshold=np.float32(0.99))
 
 
 def _ref3d():
-    return np.fromfile(REF_DATA / "testfloat_8_8_128.dat",
-                       dtype="<f4").reshape(128, 8, 8)
+    """A seeded field at the reference's testfloat_8_8_128 shape."""
+    rng = np.random.default_rng(128)
+    n = 128 * 8 * 8
+    return (np.sin(np.linspace(0, 6 * np.pi, n)) * 10
+            + rng.standard_normal(n) * 0.01).astype(np.float32).reshape(
+        128, 8, 8)
 
 
 def _synth_mean():
@@ -137,17 +140,22 @@ def test_api_device_input_fallbacks():
 
 
 def test_device_input_f64_auto_materializes(monkeypatch):
-    """engine='auto' + float64 device input on a real accelerator must
-    NOT take the device path: TPU f64 emulation loses reference
-    bit-parity (same policy as api._regnd_engine).  The fast path
-    declines (returns None) so the caller materializes to the host."""
+    """engine='auto' + float64 device input materializes to the host
+    codec on a CPU-only host (the fast path returns None), like f32;
+    on a GPU it takes the device path, whose f64 bytes equal the host
+    engine's (chip_smoke.py phase c)."""
     import jax
     from sz_tpu import api as api_mod
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     cfg = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-6)
     d64 = jnp.asarray(_ref3d().astype(np.float64))
     assert api_mod._try_compress_device(d64, cfg) is None
+    seen = []
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(api_mod, "_compress_fp",
+                        lambda data, c, dt: seen.append(c.engine) or b"")
+    assert api_mod._try_compress_device(d64, cfg) == b""
+    assert seen == ["jax"]
     # explicit engine="jax" still honors the request for f64
     cfg_explicit = SZConfig(engine="jax").with_bound(
         ErrorBoundMode.ABS, 1e-6)

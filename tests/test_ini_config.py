@@ -30,6 +30,8 @@ def synth(shape, seed=5):
 
 
 def test_from_file_example_config(tmp_path):
+    if not REF_CONF.exists():
+        pytest.skip(f"reference example config {REF_CONF} not present")
     conf = REF_CONF.read_text()
     conf = re.sub(r"errorBoundMode = .*", "errorBoundMode = ABS", conf)
     p = tmp_path / "sz.config"

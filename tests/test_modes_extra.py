@@ -160,26 +160,20 @@ def test_decompress_dtype_mismatch_raises():
 
 
 def test_auto_engine_link_bound_policy(monkeypatch):
-    """Over a link-bound tunnel (remote-attached accelerator), auto
-    keeps host-resident IO on the native host codec: the lattice would
-    otherwise cross a ~10-40 MB/s link both ways.  Device-resident
-    output (as_jax) still auto-picks the device engine — it never
-    downloads the lattice."""
+    """engine="auto" on a GPU host: large f32 fields take the device
+    engine whatever side the data lives on (no link-bound exception),
+    small ones stay on the host codec, and explicit requests are always
+    honored."""
     from sz_tpu import api
     from sz_tpu.core import regnd
-    from sz_tpu.tpu import engine as tpu_engine
+    from sz_tpu.tpu import engine as dev_engine
 
     big = api._AUTO_JAX_MIN_SIZE
-    monkeypatch.setattr(tpu_engine.jax, "default_backend", lambda: "tpu")
-
-    monkeypatch.setattr(api, "_link_bound_accelerator", lambda: True)
-    assert api._regnd_engine("auto", big) is regnd
-    assert api._regnd_engine("auto", big, device_out=True) is tpu_engine
-    # explicit requests are always honored
-    assert api._regnd_engine("jax", big) is tpu_engine
+    monkeypatch.setattr(dev_engine.jax, "default_backend", lambda: "gpu")
+    assert api._regnd_engine("auto", big) is dev_engine
+    assert api._regnd_engine("auto", big - 1) is regnd
+    assert api._regnd_engine("jax", 8) is dev_engine
     assert api._regnd_engine("numpy", big) is regnd
-
-    monkeypatch.setattr(api, "_link_bound_accelerator", lambda: False)
-    assert api._regnd_engine("auto", big) is tpu_engine
-    # f64 never auto-routes to a real TPU (bit-parity)
-    assert api._regnd_engine("auto", big, np.float64) is regnd
+    monkeypatch.setattr(dev_engine.jax, "default_backend", lambda: "cpu")
+    assert api._regnd_engine("auto", big) is regnd
+    assert api._regnd_engine("jax", big) is dev_engine

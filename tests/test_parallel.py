@@ -1,9 +1,9 @@
 """End-to-end parallel (sharded) codec tests on the 8-device CPU mesh.
 
-Parity contract (VERDICT round-1 item 3): every slab payload of a
+Parity contract: every slab payload of a
 mesh-encoded SZRA container must be byte-identical to the serial
 `api.compress` of that slab, and the sharded decode must reproduce the
-serial decode bit-exactly.  This is the TPU-native analog of the
+serial decode bit-exactly.  This is the device-mesh analog of the
 reference OpenMP codec's three phases (sz_omp.c:209-325 encode,
 sz_omp.c:366 decode) with the shared-histogram psum replaced by
 per-slab self-contained streams (the MPI-chunk pattern the reference

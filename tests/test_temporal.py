@@ -142,11 +142,11 @@ def test_temporal_compressor_device_frames_identical():
         assert np.abs(out[0] - s).max() <= 1e-3 * (1 + 1e-6)
 
 
-def test_temporal_device_decode_bit_exact():
-    """decompress_step(as_jax=True): on-chip FSM type decode + fused
+def test_temporal_device_decode_bit_exact(device_decode_interpret):
+    """decompress_step(as_jax=True): device FSM type decode + fused
     restore must be bit-identical to the host decoder, with the history
     carried on device across steps (incl. a snapshot step mid-chain)."""
-    n = 1 << 16  # above the FSM kernel's minimum stream envelope
+    n = 1 << 16
     rng = np.random.default_rng(5)
     x = np.linspace(0, 20 * np.pi, n, dtype=np.float32)
     cfg = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-4)

@@ -1,10 +1,10 @@
-"""TPU (JAX) engine parity: identical bytes to the numpy oracle and to
-reference-produced goldens.
+"""Device (JAX) engine parity: identical bytes to the numpy oracle and
+to reference-produced goldens.
 
-Runs on the virtual CPU mesh in CI (conftest sets JAX_PLATFORMS=cpu);
-verified bit-exact on real TPU v5 hardware as well (the fixpoint
-formulation is backend-independent because every op is a separately
-rounded HLO op).
+Runs on the CPU backend in CI (conftest sets JAX_PLATFORMS=cpu); the
+same parity on the GPU is checked by tests/test_hw.py and chip_smoke.py
+(the fixpoint formulation is backend-independent as long as every op is
+a separately rounded HLO op).
 """
 
 import pathlib
@@ -17,7 +17,6 @@ from sz_tpu.core import regnd
 engine = pytest.importorskip("sz_tpu.tpu.engine")
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-REF_DATA = pathlib.Path("/root/reference/example/testdata/x86")
 
 KW = dict(max_range_radius=32768, sample_distance=100,
           pred_threshold=np.float32(0.99))
@@ -30,18 +29,22 @@ def _synth64():
                        dtype="<f4").reshape(64, 64, 64)
 
 
+def _seeded(shape, dtype, seed):
+    """Smooth field plus noise, made from a seed (the shapes of the
+    reference's testfloat_8_8_128 / testdouble_8_8_128 inputs)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    x = np.linspace(0, 6 * np.pi, n)
+    return (np.sin(x) * 10 + rng.standard_normal(n) * 0.01).astype(
+        dtype).reshape(shape)
+
+
 CASES = [
-    ("f32_3d", lambda: np.fromfile(
-        REF_DATA / "testfloat_8_8_128.dat",
-        dtype="<f4").reshape(128, 8, 8), 1e-4),
+    ("f32_3d", lambda: _seeded((128, 8, 8), np.float32, 1), 1e-4),
     # synth 64^3 exercises use_mean + many escapes
     ("f32_3d64_mean", _synth64, 1e-3),
-    ("f32_2d", lambda: np.fromfile(
-        REF_DATA / "testfloat_8_8_128.dat",
-        dtype="<f4").reshape(128, 64), 1e-4),
-    ("f64_3d", lambda: np.fromfile(
-        REF_DATA / "testdouble_8_8_128.dat",
-        dtype="<f8").reshape(128, 8, 8), 1e-4),
+    ("f32_2d", lambda: _seeded((128, 64), np.float32, 2), 1e-4),
+    ("f64_3d", lambda: _seeded((128, 8, 8), np.float64, 3), 1e-4),
 ]
 
 
@@ -141,46 +144,61 @@ def test_pack_wide_bits_u32():
             check(n - 64, n)             # tail byte
 
 
-def test_bitpack_tree_matches_segment_sum():
-    """The log-depth concat-reduction pack (SZ_TPU_PACK_IMPL=tree) is
-    byte-identical to the scatter-add pack across sizes, including
-    non-pow2 streams and full-width (32-bit) codes."""
-    from sz_tpu.tpu import engine as eng
-    rng = np.random.default_rng(7)
-    nsym = 300
-    code_len = rng.integers(1, 33, nsym).astype(np.int32)
-    code_hi = np.zeros(nsym, np.uint64)
-    for i, ln in enumerate(code_len):
-        # two 16-bit draws so 31/32-bit codes exercise every code bit
-        v = (int(rng.integers(0, 1 << 16)) << 16) | int(
-            rng.integers(0, 1 << 16))
-        v &= (1 << int(ln)) - 1
-        code_hi[i] = np.uint64(v) << np.uint64(64 - ln)
-    for n in (5, 100, 4096, 100001, 1 << 17):
-        t = rng.integers(0, nsym, n).astype(np.uint16)
-        total_bits = int(code_len[t.astype(np.int64)].astype(np.int64).sum())
-        nbytes = (total_bits + 7) // 8
-        out_pad = eng._pad_pow2(nbytes + 8)
-        a = np.asarray(eng._bitpack_fn(n, out_pad, "cpu")(
-            t, code_hi, code_len))
-        b = np.asarray(eng._bitpack_tree_fn(n, out_pad, "cpu")(
-            t, code_hi, code_len))
-        np.testing.assert_array_equal(a[:nbytes], b[:nbytes])
+@pytest.mark.parametrize("n", [5, 100, 4096, 100001, 1 << 17])
+def test_histogram_and_pack_match_numpy(n):
+    """The XLA histogram equals np.bincount and the scatter-add Huffman
+    pack equals the host encoder, across sizes (non-pow2 streams,
+    skewed symbols, full-width 32-bit codes)."""
+    from sz_tpu.format import huffman
+    rng = np.random.default_rng(n)
+    t = (300 + rng.geometric(0.3, n) * rng.choice([-1, 1], n)).astype(
+        np.int32)
+    t[rng.random(n) < 0.02] = 0
+    hist = np.asarray(engine.histogram(engine.jnp.asarray(t)))
+    np.testing.assert_array_equal(hist, np.bincount(t, minlength=65536))
+    freq = np.zeros(1024, np.int64)
+    freq[:600] = np.bincount(t, minlength=600)
+    freq[599] += 1 << 33    # a rare symbol gets a 32+-bit-deep code
+    tables = huffman.build_tables(None, 512, freq=freq)
+    bits = int((np.bincount(t, minlength=len(tables.code_len))
+                * tables.code_len.astype(np.int64)).sum())
+    nbytes = (bits + 7) // 8
+    got = engine.pack_stream_device(engine.jnp.asarray(t), tables, n,
+                                    nbytes, "cpu")
+    assert got.tobytes() == huffman.encode(tables, t)[:nbytes]
 
 
-def test_bitpack_impl_env_dispatch(monkeypatch):
-    """SZ_TPU_PACK_IMPL routes bitpack_fn to the matching cached
-    implementation (the parity tests call the impls directly, so a
-    regression in the env plumbing would otherwise go unnoticed)."""
-    from sz_tpu.tpu import engine as eng
-    n, out = 64, 256
-    monkeypatch.setenv("SZ_TPU_PACK_IMPL", "tree")
-    assert eng.bitpack_fn(n, out, "raw") is eng._bitpack_tree_fn(
-        n, out, "raw")
-    monkeypatch.setenv("SZ_TPU_PACK_IMPL", "pallas")
-    assert eng.bitpack_fn(n, out, "raw") is eng._bitpack_pallas_fn(
-        n, out, "raw")
-    monkeypatch.setenv("SZ_TPU_PACK_IMPL", "segsum")
-    assert eng.bitpack_fn(n, out, "raw") is eng._bitpack_fn(n, out, "raw")
-    monkeypatch.delenv("SZ_TPU_PACK_IMPL")
-    assert eng.bitpack_fn(n, out, "raw") is eng._bitpack_fn(n, out, "raw")
+@pytest.mark.parametrize("shape", [(25, 14, 20), (13, 30), (6, 6, 6)])
+def test_corner_stream_roundtrip(shape):
+    """The compact corner-transpose stream equals take(iperm), the
+    unstream inverts it, and the closed-form position map matches
+    iperm (positions past n map to the n sentinel)."""
+    import jax.numpy as jnp
+    g = engine._geom_small(shape, 6)
+    dbs = tuple(g["dbs"])
+    x = np.arange(int(np.prod(shape)), dtype=np.int32).reshape(shape)
+    _, iperm = engine._host_stream_maps(shape, 6)
+    cs = engine._corner_stream(jnp.asarray(x), dbs, shape)
+    np.testing.assert_array_equal(np.asarray(cs), x.reshape(-1)[iperm])
+    np.testing.assert_array_equal(
+        np.asarray(engine._corner_unstream(cs, dbs, shape)), x)
+    pos = jnp.arange(int(np.prod(shape)) + 3, dtype=jnp.int32)
+    lat = np.asarray(engine._pos_to_lat_expr(pos, dbs, shape))
+    np.testing.assert_array_equal(lat[:len(iperm)], iperm)
+    assert (lat[len(iperm):] == int(np.prod(shape))).all()
+
+
+@pytest.mark.parametrize("shape,dtype,seed", [
+    ((30, 26, 22), np.float32, 7), ((17, 40, 9), np.float64, 8)])
+def test_fixpoint_matches_oracle(shape, dtype, seed):
+    """The full-lattice fixpoint (encode from the data, decode from the
+    known points) gives the oracle's bytes and bit-identical decodes on
+    non-cubic shapes with partial edge blocks."""
+    data = _seeded(shape, dtype, seed)
+    a = regnd.compress(data, 1e-3, **KW)
+    b = engine.compress(data, 1e-3, **KW)
+    assert a.body == b.body
+    u = np.uint32 if dtype == np.float32 else np.uint64
+    oa = regnd.decompress(a.body, data.shape, dtype)
+    ob = engine.decompress(a.body, data.shape, dtype)
+    np.testing.assert_array_equal(oa.view(u), ob.view(u))
